@@ -6,7 +6,7 @@ A cutting-stock LP whose pattern family is priced lazily: the master runs
 on device, the knapsack pricing runs on host, each re-solve warm-starts
 from the previous basis.
 
-Run:  RELP_TPU_PLATFORM=cpu python examples/column_range.py
+Run:  JAX_PLATFORMS=cpu python examples/column_range.py
 """
 
 import itertools

@@ -1,7 +1,7 @@
 """Scenario-fleet solving: many perturbed LPs in one vmapped device program
 (the data-parallel analogue; reference solves one LP per process).
 
-Run:  RELP_TPU_PLATFORM=cpu python examples/scenario_fleet.py
+Run:  JAX_PLATFORMS=cpu python examples/scenario_fleet.py
 """
 
 import os

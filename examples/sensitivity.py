@@ -6,7 +6,7 @@ coefficient and each resource capacity can move before the production
 plan (the optimal basis) changes — and the exact marginal value (dual)
 of each resource inside that window.
 
-Run:  RELP_TPU_PLATFORM=cpu python examples/sensitivity.py
+Run:  JAX_PLATFORMS=cpu python examples/sensitivity.py
 """
 
 import os

@@ -22,7 +22,7 @@ from relp_tpu.utils.config import SolverConfig
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="relp_tpu",
-        description="TPU-native linear program solver (two-phase revised simplex)",
+        description="linear program solver on an accelerator (two-phase revised simplex)",
     )
     ap.add_argument("problem_file", help="path to a .mps (free) or .sif (fixed) file")
     ap.add_argument("--max-iter", type=int, default=0, help="iteration cap (0 = auto)")
@@ -51,7 +51,7 @@ def main(argv=None) -> int:
         default="primal",
         help="main solve algorithm (dual = dual simplex from scratch; "
         "pdlp = first-order restarted PDHG, the scale path; ipm = "
-        "Mehrotra predictor-corrector interior point, dense MXU GEMMs)",
+        "Mehrotra predictor-corrector interior point, dense GEMMs)",
     )
     ap.add_argument(
         "--no-crossover",
@@ -63,8 +63,8 @@ def main(argv=None) -> int:
         "--pdlp-matrix",
         choices=["auto", "ell", "bricks"],
         default="auto",
-        help="PDHG device matrix layout (bricks = (8,128) tiles + RCM, "
-        "the TPU-fast SpMV; auto = bricks on accelerators, ELL on CPU)",
+        help="PDHG device matrix layout (auto = ELL; bricks = (8,128) "
+        "tiles + RCM)",
     )
     ap.add_argument(
         "--pdlp-variant",
@@ -77,8 +77,8 @@ def main(argv=None) -> int:
         "--pdlp-precision",
         choices=["auto", "mixed", "f64"],
         default="auto",
-        help="PDHG iterate precision (mixed = f32 rounds + f64 KKT checks "
-        "+ f64 endgame, 2.4x faster on TPU; auto = mixed on accelerators)",
+        help="PDHG iterate precision (auto = f64; mixed = f32 rounds + "
+        "f64 KKT checks + f64 endgame)",
     )
     ap.add_argument(
         "--pdlp-refine",
@@ -86,7 +86,7 @@ def main(argv=None) -> int:
         default=4,
         help="max iterative-refinement zooms for the mixed-precision PDHG "
         "path (scaled residual subproblems keep the endgame in f32 rounds; "
-        "0 disables — the limb-emulated f64 endgame is the fallback)",
+        "0 disables — the f64 endgame is the fallback)",
     )
     ap.add_argument(
         "--pdlp-accept",
@@ -115,9 +115,7 @@ def main(argv=None) -> int:
     ap.add_argument(
         "--ipm-ladder", choices=["auto", "mixed", "f64"], default="auto",
         help="with --algorithm ipm: Cholesky precision ladder — auto "
-        "(f32→f64 on accelerators, f64 on CPU), mixed, or f64-only "
-        "(GREENBEA-class instances whose f32 escape phase decentres the "
-        "iterate)",
+        "(= f64-only) or mixed (f32 first, escalating to f64)",
     )
     ap.add_argument(
         "--perturb",
@@ -170,8 +168,7 @@ def main(argv=None) -> int:
         choices=["auto", "lu", "dense", "primal"],
         default="auto",
         help="XL-scale engine: 'lu' forces the host sparse-LU dual "
-        "simplex at any size (SuperLU refactorization — FIT2P in 9.7s vs "
-        "194s on-device); 'auto' uses it above the XL row threshold; "
+        "simplex at any size; 'auto' uses it above the XL row threshold; "
         "'primal' stays on the externally refactorized DEVICE primal "
         "at any size (no host-LU routing)",
     )

@@ -30,9 +30,8 @@ Primal-Dual Hybrid Gradient" — the method behind Google PDLP):
   cached A·x updates without an extra SpMV; restarts jump to T(z)
   (the paper's rule) when it beats the Halpern iterate.
 - every op is an SpMV (amatrix matvec/rmatvec — O(nnz) gathers on the
-  ELL layout) or an O(n+m) vector op; f64 throughout (elementwise f64
-  is cheap on this TPU — only *matmuls* pay the limb-emulation tax, and
-  PDHG has none).
+  ELL layout) or an O(n+m) vector op, in the arrays' dtype (f64, or f32
+  for the driver's mixed-precision rounds).
 - termination: relative KKT — primal residual ‖Ax−b‖∞/(1+‖b‖∞), dual
   sign-violation of z = c − Aᵀy against infinite bounds, and the
   normalized primal-dual objective gap, all below ``tol``.
@@ -166,9 +165,8 @@ def solve_pdhg_chunk(
     """Run up to ``max_rounds`` restart rounds (``round_len`` adaptive
     PDHG steps each) from ``state``; returns when KKT < tol (OPTIMAL) or
     the round budget is exhausted (status stays RUNNING — the driver
-    continues with another chunk, keeping each device execution under
-    the watchdog).  ``variant``: "avg" restarts to the running average
-    (classic PDLP); "halpern" runs the reflected Halpern iteration
+    checks the f64 KKT and continues with another chunk).  ``variant``:
+    "avg" restarts to the running average (classic PDLP); "halpern" runs the reflected Halpern iteration
     (module docstring) and restarts to T(z)."""
     A = as_amatrix(A)
 

@@ -3,7 +3,7 @@
 Counterpart of the reference's ``MatrixData`` provider
 (``src/algorithm/two_phase/matrix_provider/matrix_data.rs:53-616``), which
 presents a standardized ``GeneralForm`` as a virtual block matrix with six
-column groups and virtual bound rows.  The TPU design is deliberately
+column groups and virtual bound rows.  This design is deliberately
 different (SURVEY §7): variable bounds are *not* materialized as rows —
 the engine is a bounded-variable simplex — so the only appended columns are
 one slack per non-equality row:

@@ -4,7 +4,7 @@ The reference defines the per-variable feasibility hook for this
 (``matrix_provider/variable.rs:14-41``) but leaves branch-and-bound itself
 on the unchecked roadmap (README.md "Integer variables through a
 branch-and-bound algorithm").  This module goes the rest of the way, and in
-the TPU-native idiom: every node re-solve is a *warm* device solve — the
+the device idiom: every node re-solve is a *warm* device solve — the
 dual simplex from the parent's basis (bounds changed, costs untouched ⇒
 parent basis stays dual feasible), which is exactly the workload
 :func:`relp_tpu.simplex.reoptimize.reoptimize_with_bounds` provides — so a

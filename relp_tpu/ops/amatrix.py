@@ -10,7 +10,7 @@ interchangeable pytree classes the jitted engine consumes through one small
 operator interface:
 
 - :class:`DenseMatrix` — the round-1 layout: A (f64) plus an optional f32
-  copy for MXU pricing.  Best for small/dense pools where fused matvecs
+  copy for pricing.  Best for small/dense pools where fused matvecs
   beat gather arithmetic.
 - :class:`EllMatrix` — column-major ELL: per column up to K nonzeros,
   padded with (row 0, value 0).  ``data[n, K]`` (f64), ``rows[n, K]``
@@ -23,14 +23,13 @@ operator interface:
     SpMV      A@x        → scatter-add data·x into rows       (nnz)
     refactor  B gather   → scatter K nnz per basis column     (m·K)
 
-  TPU note: these are gathers/scatters on the VPU, not MXU matmuls — but
-  for Netlib-sparse problems (density ≪ 1%) they beat emulated-f64 dense
-  matvecs by orders of magnitude and cut HBM residency from O(m·n) to
+  For Netlib-sparse problems (density ≪ 1%) these gathers beat dense
+  matvecs by orders of magnitude and cut device memory from O(m·n) to
   O(nnz), which is what unlocks DFL001/STOCFOR3-class instances.
 
 Both classes are registered as JAX pytrees so they pass straight through
 ``jax.jit``/``jax.vmap``; the engine dispatches on the Python type at trace
-time (the TPU-native analogue of the reference's compile-time
+time (the analogue of the reference's compile-time
 ``MatrixProvider`` static dispatch).
 """
 
@@ -45,20 +44,17 @@ from jax import lax
 def _pin(x):
     """Materialize a gather/scatter operand before the gather consumes it.
 
-    XLA fuses a gather with its operand's producer and then recomputes the
-    producer chain PER GATHERED ELEMENT: on DFL001's PDHG step the A·x
-    gather (m_pad·Kr ≈ 1.6M reads) fused with the freshly computed x
-    (itself a K-wide gather per element) ran at 26 ms/step while the same
-    gather from a materialized x ran at 61 µs (tools/probe_step_bisect.py,
-    430× cliff).  ``optimization_barrier`` is opaque to producer fusion;
-    when the operand is already materialized (a loop carry) it costs
-    nothing."""
+    XLA may fuse a gather with its operand's producer and then recompute
+    the producer chain PER GATHERED ELEMENT (on a PDHG step: the A·x gather
+    fused with the freshly computed x, itself a K-wide gather per element).
+    ``optimization_barrier`` is opaque to producer fusion; when the operand
+    is already materialized (a loop carry) it costs nothing."""
     return lax.optimization_barrier(x)
 
 
 @jax.tree_util.register_pytree_node_class
 class DenseMatrix:
-    """Dense padded A with an optional f32 shadow for MXU pricing."""
+    """Dense padded A with an optional f32 shadow for pricing."""
 
     def __init__(self, A, A32=None):
         self.A = A
@@ -87,12 +83,11 @@ class DenseMatrix:
     # -- operator interface --------------------------------------------------
 
     def matvec(self, x):
-        """A @ x.  Full input precision: on TPU, f32 MXU matmuls default
-        to truncated bf16 inputs (8-bit mantissa) — PDHG iterations and
-        pricing confirmations need the genuine dtype (measured: the
-        shared-A fleet's f32 GEMM iteration stalls at KKT ~1e-1 under
-        the default, converges under HIGHEST; f64 emulation ignores the
-        flag, so the f64 paths are unaffected)."""
+        """A @ x.  Full input precision: at the default precision an f32
+        product may run in TF32 (a 10-bit mantissa) on a GPU — PDHG
+        iterations and pricing confirmations need the genuine dtype (the
+        shared-A fleet's f32 GEMM iteration stalls at KKT ~1e-1 with
+        truncated inputs).  f64 products are unaffected."""
         return jnp.matmul(self.A, x, precision=jax.lax.Precision.HIGHEST)
 
     def rmatvec(self, pi):
@@ -100,14 +95,13 @@ class DenseMatrix:
         return jnp.matmul(pi, self.A, precision=jax.lax.Precision.HIGHEST)
 
     def rmatvec32(self, v32):
-        """v32ᵀ A in f32 (MXU pricing path); v32 must be f32.
+        """v32ᵀ A in f32 (pricing path); v32 must be f32.
 
-        Default (bf16-truncated) MXU precision is DELIBERATE here: the
-        simplex pricing scan only proposes candidates — every entering
-        choice is confirmed against the f64 reduced cost before pivoting
-        (simplex/core.py), so the 8-bit-mantissa speedup is free.  The
-        iteration-critical f32 matmuls (PDHG/fleet) go through matvec/
-        rmatvec, which request HIGHEST."""
+        Default precision (TF32 allowed) is DELIBERATE here: the simplex
+        pricing scan only proposes candidates — every entering choice is
+        confirmed against the f64 reduced cost before pivoting
+        (simplex/core.py).  The iteration-critical f32 matmuls
+        (PDHG/fleet) go through matvec/rmatvec, which request HIGHEST."""
         return v32 @ self.A32
 
     def rmatvec32_block(self, v32, bstart, bsize: int):
@@ -122,10 +116,8 @@ class DenseMatrix:
         return jnp.take(self.A, q, axis=1)
 
     def ftran(self, Binv, q):
-        """B⁻¹ a_q (panel-safe at XL scale — see ops/linalg.panel_matvec)."""
-        from relp_tpu.ops.linalg import panel_matvec
-
-        return panel_matvec(Binv, self.col(q))
+        """B⁻¹ a_q."""
+        return Binv @ self.col(q)
 
     def col_dot(self, pi, q):
         """πᵀ a_q (scalar, f64)."""
@@ -148,10 +140,8 @@ class EllMatrix:
 
     ``rdata``/``rcols`` optionally hold the SAME matrix in row-major ELL
     (per-row nonzeros, padded with (col 0, value 0)).  When present,
-    :meth:`matvec` becomes a pure gather+sum like :meth:`rmatvec` — on the
-    TPU the column-major form's scatter-add serializes on duplicate row
-    indices (measured 47 it/s vs 710 it/s CPU on DFL001 PDHG, ~21 ms per
-    A·x), while the gather form runs at memory speed."""
+    :meth:`matvec` becomes a pure gather+sum like :meth:`rmatvec`, with
+    no scatter-add contention on duplicate row indices."""
 
     def __init__(self, data, rows, m: int, data32=None,
                  rdata=None, rcols=None):
@@ -262,8 +252,8 @@ class HybridMatrix:
     the same order as the engine's per-pivot rank-1 update, so the constant
     factor is bounded.  Reference frame: rust-lp stores such columns as
     plain sparse vectors and pays O(nnz) on the CPU
-    (src/data/linear_algebra/matrix.rs:23-77); on the TPU the dense block
-    keeps the gather shapes static and the MXU busy instead.
+    (src/data/linear_algebra/matrix.rs:23-77); here the dense block keeps
+    the gather shapes static.
     """
 
     def __init__(self, ell: EllMatrix, D, spill_idx, spill_pos, D32=None):
@@ -305,11 +295,16 @@ class HybridMatrix:
     # -- operator interface --------------------------------------------------
 
     def matvec(self, x):
-        return self.ell.matvec(x) + self.D @ jnp.take(x, self.spill_idx)
+        return self.ell.matvec(x) + jnp.matmul(
+            self.D, jnp.take(x, self.spill_idx),
+            precision=jax.lax.Precision.HIGHEST,
+        )
 
     def rmatvec(self, pi):
         r = self.ell.rmatvec(pi)
-        return r.at[self.spill_idx].add(pi @ self.D)
+        return r.at[self.spill_idx].add(
+            jnp.matmul(pi, self.D, precision=jax.lax.Precision.HIGHEST)
+        )
 
     def rmatvec32(self, v32):
         r = self.ell.rmatvec32(v32)
@@ -326,11 +321,7 @@ class HybridMatrix:
         return self.ell.col(q) + self._spill_col(q)
 
     def ftran(self, Binv, q):
-        from relp_tpu.ops.linalg import panel_matvec
-
-        return self.ell.ftran(Binv, q) + panel_matvec(
-            Binv, self._spill_col(q)
-        )
+        return self.ell.ftran(Binv, q) + Binv @ self._spill_col(q)
 
     def col_dot(self, pi, q):
         return self.ell.col_dot(pi, q) + pi @ self._spill_col(q)
@@ -368,7 +359,7 @@ def ell_from_csc(
     ``row_layout`` (default) the row-major twin (``rdata``/``rcols``,
     per-row pad ``kr_pad``, bucketed to a multiple of 8 by default) is
     built too, so :meth:`EllMatrix.matvec` is a gather+sum instead of a
-    scatter-add (TPU scatters serialize on duplicate indices).
+    scatter-add.
     """
     m, n = csc.shape
     assert m <= m_pad and n <= n_pad

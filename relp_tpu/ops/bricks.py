@@ -1,12 +1,11 @@
-"""Tiled-brick sparse device matrix — the TPU-shaped SpMV layout.
+"""Tiled-brick sparse device matrix — an SpMV layout without element
+gathers (``config.pdlp_matrix="bricks"``; the default is ELL).
 
-Why: TPU element gathers are serial (~14 ns per gathered element measured
-on DFL001's ELL arrays — tools/probe_gather_layouts.py: a dependent
-1.57M-element gather costs 21 ms, while gathering the same data as
-49k×128-lane ROWS costs 427 µs).  The reference's CSC/CSR sparse vectors
-(src/data/linear_algebra/matrix.rs:23-77) assume cheap random access and
-do not map to this hardware; this layout re-shapes the nonzeros so every
-memory access is a 128-lane row gather or a streaming read:
+The reference's CSC/CSR sparse vectors (src/data/linear_algebra/
+matrix.rs:23-77) assume cheap random access.  This layout was built for an
+accelerator whose element gathers were serial: it re-shapes the nonzeros
+so every memory access is a 128-lane row gather or a streaming read
+(``PERF.md`` compares it with ELL on the H100):
 
 - nonzeros are grouped into (tr × tc) = (8 × 128) dense **bricks** on the
   (row-tile, column-block) grid;
@@ -14,8 +13,8 @@ memory access is a 128-lane row gather or a streaming read:
   array ``data[T, B, tr, tc]`` with block ids ``idx[T, B]`` (empty slots
   are zero bricks pointing at block 0 — harmless);
 - ``A·x`` gathers x as 128-lane blocks (``take(x.reshape(-1, tc), idx,
-  axis=0)`` — the fast layout) and contracts with the bricks on the VPU
-  in exact f64: ``y[t, r] = Σ_{b,l} data[t,b,r,l]·x_blk[t,b,l]``;
+  axis=0)``) and contracts with the bricks in exact f64:
+  ``y[t, r] = Σ_{b,l} data[t,b,r,l]·x_blk[t,b,l]``;
 - ``πᵀA`` uses an independently-built transposed brick set (column tiles
   of 8, row blocks of 128), same contraction shape.
 
@@ -33,8 +32,8 @@ import numpy as np
 
 from relp_tpu.ops.amatrix import _pin
 
-TR = 8      # rows per tile (sublane granularity)
-TC = 128    # columns per block (lane granularity)
+TR = 8      # rows per tile
+TC = 128    # columns per block
 
 
 def _slot_layout(r, c, v, n_rows_pad: int, n_cols_pad: int, b_pad=None):

@@ -2,16 +2,17 @@
 
 Counterpart of the reference's basis-inverse backends
 (``BasisInverseRows``/``LUDecomposition`` under
-``src/algorithm/two_phase/tableau/inverse_maintenance/carry/``).  The TPU
+``src/algorithm/two_phase/tableau/inverse_maintenance/carry/``).  The
 engine maintains an explicit dense inverse updated by rank-1 product-form
 pivots (reference product-form update, basis_inverse_rows.rs:20-88) and
 *refactorizes* it from the basis columns periodically (generalizing the
 reference's refactor-after-10-eta-updates policy, lower_upper/mod.rs:199-202).
 
-XLA's LuDecomposition op is F32-only on TPU, so the f64 refactorization is
-implemented here from scratch as a Gauss-Jordan elimination with partial
-pivoting expressed in basic XLA ops (fori_loop + rank-1 updates), which also
-keeps it fully fusible under jit.  A blocked Pallas LU is the planned upgrade.
+The f64 refactorization is an f32 LU inverse seed refined by Newton-Schulz
+matmuls, with a Gauss-Jordan elimination (partial pivoting, basic XLA ops)
+as the ill-conditioned fallback.  On an H100 XLA's own f64 inverse is
+faster at the XL size (``PERF.md``, bring-up measurements); replacing this
+stack is a separate change.
 """
 
 from __future__ import annotations
@@ -59,147 +60,23 @@ def gauss_jordan_inverse(B: jax.Array, tiny: float = 1e-300):
     return M[:, m:], min_piv
 
 
-# Max output elements of a single f64 matmul on device.  This TPU's f64
-# matmul emulation materializes an f32[8, out_shape] limb-partial buffer
-# (observed on STOCFOR3: "Allocation (size=19394461696) ... f32[8,17408,
-# 34816]" — 8×4 bytes per output element), so an unpanelled (m, 2m) f64
-# product at m≈17k alone exceeds the 16 GB HBM.  2^26 output elements
-# → ≈2 GB of limb partials per panel.
-_PANEL_MAX_OUT = 1 << 26
-
-
-def _pin(x: jax.Array) -> jax.Array:
-    """Pin a sliced dot operand so the f64-emulation limb expansion stays
-    at panel size.  Without this, XLA commutes ``limb_expand(dynamic_slice
-    (A))`` into ``dynamic_slice(limb_expand(A))`` and LICM then hoists the
-    FULL f32[8,m,m] expansion out of the panel ``fori_loop`` (observed on
-    STOCFOR3's rebuild: a 9.03 GB ``copy(get-tuple-element)`` carried by
-    the loop).  ``optimization_barrier`` is opaque to that rewrite."""
-    return lax.optimization_barrier(x)
-
-
-def panel_matmul(A: jax.Array, B: jax.Array) -> jax.Array:
-    """``A @ B``, computed in column panels of ``B`` when the output is
-    large enough that the f64-emulation limb partials would blow HBM.
-
-    The panels run inside a ``lax.fori_loop`` writing into one output
-    buffer: an unrolled python loop + concatenate lets XLA merge the
-    per-panel limb buffers back into a single f32[8, m, n] allocation
-    (observed 9 GB on STOCFOR3's rebuild), defeating the panelling —
-    the sequential loop keeps exactly ONE panel's limbs live.  Each
-    panel is still a full-width MXU matmul (panel width ≥ 128 lanes).
-    """
-    m, K = A.shape
-    n_out = B.shape[1]
-    if max(m * n_out, m * K, K * n_out) <= _PANEL_MAX_OUT:
-        return A @ B
-    p = _panel_width(n_out, m)
-    kb = _panel_width(K, m)
-
-    def body(i, out):
-        j = i * p
-
-        def inner(k, acc):
-            Ak = _pin(lax.dynamic_slice(A, (0, k * kb), (m, kb)))
-            Bk = _pin(lax.dynamic_slice(B, (k * kb, j), (kb, p)))
-            return acc + Ak @ Bk
-
-        Ci = lax.fori_loop(0, K // kb, inner, jnp.zeros((m, p), A.dtype))
-        return lax.dynamic_update_slice(out, Ci, (0, j))
-
-    return lax.fori_loop(0, n_out // p, body, jnp.zeros((m, n_out), A.dtype))
-
-
-def _panel_width(n_out: int, m: int) -> int:
-    """Largest panel width that exactly divides ``n_out`` under the limb
-    budget, preferring lane-aligned (×128) widths.  Exact division matters:
-    a remainder matmul OUTSIDE the fori_loop makes XLA materialize all 8
-    f64-emulation limbs of the m×m input at once (observed 9 GB f32[8,m,m]
-    on STOCFOR3's rebuild), while in-loop dots stream limb by limb."""
-    cap = max(1, _PANEL_MAX_OUT // m)
-    if n_out <= cap:
-        return n_out
-    for step in (128, 8, 1):
-        top = min(cap, n_out) // step * step
-        for p in range(top, 0, -step):
-            if n_out % p == 0:
-                return p
-    return 1
-
-
-def panel_submatmul(M: jax.Array, F: jax.Array, R: jax.Array) -> jax.Array:
-    """``M - F @ R`` with the product computed (and subtracted) panel by
-    panel inside a ``lax.fori_loop`` — never materializes the full-size
-    product, so the peak extra HBM is one panel's output + limb partials
-    (the blocked-GJ update at STOCFOR3 scale would otherwise hold a 4.8 GB
-    product next to the 4.8 GB tableau)."""
-    m, n_out = M.shape
-    K = F.shape[1]
-    if max(m * n_out, m * K, K * n_out) <= _PANEL_MAX_OUT:
-        return M - F @ R
-    p = _panel_width(n_out, m)
-    kb = _panel_width(K, m)
-
-    def body(i, out):
-        j = i * p
-        Mi = lax.dynamic_slice(out, (0, j), (m, p))
-
-        def inner(k, acc):
-            Fk = _pin(lax.dynamic_slice(F, (0, k * kb), (m, kb)))
-            Rk = _pin(lax.dynamic_slice(R, (k * kb, j), (kb, p)))
-            return acc - Fk @ Rk
-
-        return lax.dynamic_update_slice(
-            out, lax.fori_loop(0, K // kb, inner, Mi), (0, j)
-        )
-
-    return lax.fori_loop(0, n_out // p, body, M)
-
-
-def panel_matvec(M: jax.Array, v: jax.Array) -> jax.Array:
-    """``M @ v`` computed in row panels when ``M`` is large enough that the
-    f64-emulation would materialize a full f32[4, m, K] limb expansion of
-    the matrix operand (observed 4.52 GB on STOCFOR3's rebuild from a
-    single m×m probe matvec).  Each panel dot sees a pinned (p, K) slice,
-    bounding the live limb buffer to one panel's."""
-    m, K = M.shape
-    if m * K <= _PANEL_MAX_OUT:
-        return M @ v
-    p = _panel_width(m, K)
-
-    def body(i, out):
-        Mi = _pin(lax.dynamic_slice(M, (i * p, 0), (p, K)))
-        return lax.dynamic_update_slice(out, Mi @ v, (i * p,))
-
-    return lax.fori_loop(0, m // p, body, jnp.zeros((m,), M.dtype))
-
-
-def panel_vecmat(v: jax.Array, M: jax.Array) -> jax.Array:
-    """``v @ M`` in column panels of ``M`` (see :func:`panel_matvec`)."""
-    K, n_out = M.shape
-    if K * n_out <= _PANEL_MAX_OUT:
-        return v @ M
-    p = _panel_width(n_out, K)
-
-    def body(i, out):
-        Mi = _pin(lax.dynamic_slice(M, (0, i * p), (K, p)))
-        return lax.dynamic_update_slice(out, v @ Mi, (i * p,))
-
-    return lax.fori_loop(0, n_out // p, body, jnp.zeros((n_out,), M.dtype))
+# Above this many entries ``inverse_residual`` checks with probe matvecs
+# instead of an m³ product.
+_EXACT_RESIDUAL_MAX = 1 << 26
 
 
 def inverse_residual(B: jax.Array, X: jax.Array) -> jax.Array:
     """Residual of a candidate inverse: ``max|I − B·X|``.
 
-    Exact below the panel threshold; above it (XL scale) the full m×m
-    product is replaced by sign-pattern probe vectors — ``max_k |v_k −
+    Exact below ``_EXACT_RESIDUAL_MAX`` entries; above it (XL scale) the
+    full m×m product is replaced by sign-pattern probe vectors — ``max_k |v_k −
     B(X v_k)|∞`` — four matvecs instead of an m³ matmul.  A probe
     understates the true max-abs residual, but Newton/polish drift is
     dense roundoff, which probes catch; the threshold's meaning (healthy
     vs rebuild) is unchanged.
     """
     m = B.shape[0]
-    if m * m <= _PANEL_MAX_OUT:
+    if m * m <= _EXACT_RESIDUAL_MAX:
         return jnp.max(jnp.abs(jnp.eye(m, dtype=B.dtype) - B @ X))
     i = jnp.arange(m)
     probes = (
@@ -210,84 +87,32 @@ def inverse_residual(B: jax.Array, X: jax.Array) -> jax.Array:
     )
     r = jnp.array(0.0, B.dtype)
     for v in probes:
-        r = jnp.maximum(r, jnp.max(jnp.abs(v - panel_matvec(B, panel_matvec(X, v)))))
+        r = jnp.maximum(r, jnp.max(jnp.abs(v - B @ (X @ v))))
     return r
 
 
-def blocked_gj_inverse(B: jax.Array, block: int = 1024) -> jax.Array:
-    """Inverse by *blocked* Gauss-Jordan — pure matmuls, in ``B``'s dtype.
-
-    XLA's ``LuDecomposition`` custom call allocates a full-height
-    (m, 128) double-buffered panel in VMEM, which exceeds the 16 MB scoped
-    limit for m_pad ≳ 15k (observed on STOCFOR3: f32[17408,128] → "Ran out
-    of memory in memory space vmem").  This routine eliminates ``block``
-    columns at a time on the augmented [B | I]: invert the (block, block)
-    diagonal block (small f32 LU — its VMEM panel is only (block, 128) —
-    Newton-refined to ``B``'s dtype in-block), scale that row-block with
-    one matmul, clear the column-block with one rank-``block`` update.
-    ~2m³ FLOPs total, all MXU matmuls; no cross-block pivoting (partial
-    pivoting lives inside the small LU; the caller's Newton residual
-    check catches a bad block — for equilibrated simplex bases the seed
-    residual is ~1e-7..1e-10, one refinement step from full precision).
-    """
-    m = B.shape[0]
-    assert m % block == 0, (m, block)
-    f = B.dtype
-    M = jnp.concatenate([B, jnp.eye(m, dtype=f)], axis=1)
-    rows = jnp.arange(m)
-    eye_b = jnp.eye(block, dtype=f)
-
-    def body(kb, M):
-        k0 = kb * block
-        rowsk = lax.dynamic_slice(M, (k0, 0), (block, 2 * m))
-        Akk = lax.dynamic_slice(rowsk, (0, k0), (block, block))
-        Xb = jnp.linalg.inv(Akk.astype(jnp.float32)).astype(f)
-        Xb = Xb @ (2.0 * eye_b - Akk @ Xb)
-        Xb = Xb @ (2.0 * eye_b - Akk @ Xb)
-        rowsk = Xb @ rowsk
-        in_block = (rows >= k0) & (rows < k0 + block)
-        factors = jnp.where(
-            in_block[:, None],
-            0.0,
-            lax.dynamic_slice(M, (0, k0), (m, block)),
-        )
-        M = panel_submatmul(M, factors, rowsk)
-        return lax.dynamic_update_slice(M, rowsk, (k0, 0))
-
-    M = lax.fori_loop(0, m // block, body, M)
-    return M[:, m:]
-
-
-# above this padded row count the XLA f32 LU's VMEM panel overflows; use
-# the blocked Gauss-Jordan seed instead (see blocked_f32_inverse).
-_LU_VMEM_MAX_M = 12288
+# Above this size the scalar Gauss-Jordan fallback is not run: its m
+# sequential rank-1 sweeps over the m×2m tableau move ~16·m² bytes each
+# (about a minute at m = 16384 at an H100's memory bandwidth); an
+# unhealthy Newton result reports a singular basis instead.
+_GJ_MAX_M = 12288
 
 
 def newton_refined_inverse(B: jax.Array, refine_steps: int = 3):
-    """MXU-friendly f64 inverse: f32 LU inverse seed + Newton-Schulz refinement.
+    """f64 inverse: f32 LU inverse seed + Newton-Schulz refinement.
 
-    XLA's LuDecomposition is f32-only on TPU; a f32 inverse seed ``X₀``
-    refined by ``X ← X(2I − BX)`` (quadratic convergence) reaches f64
-    accuracy in 2-3 iterations of pure matmuls — far fewer sequential steps
-    than Gauss-Jordan's m-step elimination.  Returns ``(X, residual)`` with
-    ``residual = max|I − BX|``; the caller falls back to
-    :func:`gauss_jordan_inverse` when the seed was too inaccurate
-    (ill-conditioned B) or singular (residual NaN).
+    A f32 inverse seed ``X₀`` refined by ``X ← X(2I − BX)`` (quadratic
+    convergence) reaches f64 accuracy in 2-3 iterations of pure matmuls —
+    far fewer sequential steps than Gauss-Jordan's m-step elimination.
+    Returns ``(X, residual)`` with ``residual = max|I − BX|``; the caller
+    falls back to :func:`gauss_jordan_inverse` when the seed was too
+    inaccurate (ill-conditioned B) or singular (residual NaN).
     """
     m = B.shape[0]
     eye = jnp.eye(m, dtype=B.dtype)
-    if m > _LU_VMEM_MAX_M:
-        blk = 1024 if m % 1024 == 0 else 512
-        X = blocked_gj_inverse(B, block=blk)
-        # the blocked seed already works in f64 (only the small diagonal
-        # blocks go through f32), so fewer Newton steps suffice — each step
-        # is two m³ emulated-f64 matmuls (~seconds at m≈17k, and the whole
-        # rebuild must stay under the device-execution watchdog)
-        refine_steps = min(refine_steps, 2)
-    else:
-        X = jnp.linalg.inv(B.astype(jnp.float32)).astype(B.dtype)
+    X = jnp.linalg.inv(B.astype(jnp.float32)).astype(B.dtype)
     for _ in range(refine_steps):
-        X = panel_matmul(X, 2.0 * eye - panel_matmul(B, X))
+        X = X @ (2.0 * eye - B @ X)
     residual = inverse_residual(B, X)
     return X, residual
 
@@ -305,11 +130,10 @@ def robust_inverse(B: jax.Array, newton_tol: float = 1e-9):
     def use_newton(_):
         return X, jnp.array(jnp.inf, B.dtype)
 
-    if B.shape[0] > _LU_VMEM_MAX_M:
-        # the scalar Gauss-Jordan fallback (m sequential rank-1 steps over
-        # an m×2m tableau) is not executable at this scale; an unhealthy
-        # Newton result signals a (near-)singular basis — report pivot 0 so
-        # the engine's singular-basis repair takes over.
+    if B.shape[0] > _GJ_MAX_M:
+        # no Gauss-Jordan at this scale (_GJ_MAX_M): an unhealthy Newton
+        # result signals a (near-)singular basis — report pivot 0 so the
+        # engine's singular-basis repair takes over.
         def flag_singular(_):
             return X, jnp.array(0.0, B.dtype)
 
@@ -327,7 +151,7 @@ def rank_one_basis_update(Binv: jax.Array, u: jax.Array, r: jax.Array) -> jax.Ar
     ``u = Binv @ a_q`` is the FTRAN result for the entering column, ``r`` the
     leaving row.  Applies ``E @ Binv`` with ``E = I - (u - e_r) e_rᵀ / u_r``
     (reference ``BasisInverseRows::change_basis`` normalize-and-row-reduce,
-    basis_inverse_rows.rs:97-155) as one outer product — MXU/VPU friendly.
+    basis_inverse_rows.rs:97-155) as one outer product.
     """
     p = u[r]
     w = Binv[r] / p

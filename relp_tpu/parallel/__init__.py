@@ -1,9 +1,9 @@
 """Distributed execution: device meshes, sharded pricing, batched solves.
 
 The reference is single-threaded/single-process (SURVEY §2.8); this package
-is the *new* TPU-native scaling layer:
+is the *new* multi-device scaling layer:
 
-- ``mesh.py`` — mesh construction over ICI ('batch' × 'cols' axes),
+- ``mesh.py`` — mesh construction ('batch' × 'cols' axes),
 - ``sharded.py`` — the simplex solve pjit-sharded: column blocks of A
   partitioned over 'cols' (pricing = the hot matvec, reduced via XLA
   collectives), basis inverse replicated,

@@ -2,8 +2,8 @@
 
 Meshes are 2D: ('batch', 'cols').  'cols' shards the column pool — the
 pricing matvec ``d = c − πᵀA`` runs on local blocks with the argmax reduced
-by XLA collectives over ICI; 'batch' shards independent scenario LPs
-(vmap axis).  Single-chip meshes are (1, 1).
+by XLA collectives over the cards' links (NVLink within a host); 'batch'
+shards independent scenario LPs (vmap axis).  Single-chip meshes are (1, 1).
 """
 
 from __future__ import annotations

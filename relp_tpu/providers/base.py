@@ -3,7 +3,7 @@
 Counterpart of reference ``matrix_provider/mod.rs:27-136`` (the
 ``MatrixProvider`` trait: ``column(j)``, ``cost_value(j)``,
 ``right_hand_side()``, dimension queries, ``reconstruct_solution``) and the
-``Column`` traits (column/mod.rs:27-97).  The TPU reformulation drops the
+``Column`` traits (column/mod.rs:27-97).  The device reformulation drops the
 per-column pull API in the hot path: a provider's job is to *materialize a
 pool* ``(A, b, c, lb, ub)`` that the jitted engine prices in one fused
 matvec.  ``column(j)`` remains for host-side composition (filters, tests).
@@ -40,7 +40,7 @@ class MatrixProvider(Protocol):
 class ColumnPool:
     """A dense standard-form LP snapshot:  min c@x, A@x == b, lb <= x <= ub.
 
-    ``active`` masks which columns participate in pricing — the TPU encoding
+    ``active`` masks which columns participate in pricing — the device encoding
     of the reference's lazily-generated virtual column sets
     (tableau/mod.rs:188-191): inactive columns get lb = ub = 0, which the
     engine's ``can_enter`` mask excludes statically.

@@ -2,7 +2,7 @@
 
 Counterpart of the reference's core extension point — providers presenting
 "astronomically many" virtual columns (tableau/mod.rs:188-191) exercised by
-``examples/column_range.rs``.  The TPU realization:
+``examples/column_range.rs``.  The device realization:
 
 - the *master* LP is the current pool, solved fully on device;
 - between device solves, a host-side ``generator(pi, pool)`` prices the

@@ -3,7 +3,7 @@
 Counterpart of reference ``matrix_provider/filter/generic_wrapper.rs``
 (``RemoveRows``: present a provider minus a sorted set of rows, remapping
 indices).  Used for rank-deficiency handling: the reference rebuilds the
-tableau over the filtered provider (non_artificial.rs:191), the TPU engine
+tableau over the filtered provider (non_artificial.rs:191), the device engine
 instead keeps redundant rows masked with their artificial basic at level 0;
 this host-side filter exists for composing problems and for tests.
 """

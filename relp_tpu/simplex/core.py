@@ -1,6 +1,6 @@
 """The jitted two-phase bounded-variable revised simplex core.
 
-This is the TPU-native replacement for the reference's entire simplex engine
+This is the device replacement for the reference's entire simplex engine
 (``src/algorithm/two_phase/``, SURVEY §2.6): the whole solve is ONE
 ``lax.while_loop`` whose body fuses pricing, FTRAN, the ratio test and the
 basis-inverse update into a single device step with no host round-trips.
@@ -49,7 +49,6 @@ from relp_tpu.ops.amatrix import as_amatrix
 from relp_tpu.ops.linalg import (
     gauss_jordan_inverse,
     inverse_residual,
-    panel_matmul,
     robust_inverse,
 )
 from relp_tpu.simplex import status as st
@@ -65,9 +64,8 @@ class State(NamedTuple):
     Binv: jax.Array           # f64[m, m]
     pi: jax.Array             # f64[m] — simplex multipliers c_Bᵀ B⁻¹, updated
     #                           incrementally: π' = π + (d_q/u_r)·B⁻¹[r,:]
-    #                           (recomputed at refactorization; the BTRAN
-    #                           matvec would otherwise dominate — f64 matmul
-    #                           is emulated on TPU)
+    #                           (recomputed at refactorization; saves
+    #                           the per-pivot BTRAN matvec)
     art_sign: jax.Array       # f64[m] — artificial column i is art_sign[i]*e_i
     phase: jax.Array          # i32 scalar: 1 or 2
     status: jax.Array         # i32 scalar
@@ -92,6 +90,9 @@ class State(NamedTuple):
     #                           periodic in-loop check (cfg.check_every_n)
     pblock: jax.Array         # i32 — current partial-pricing block (rotates
     #                           block-cyclically; cfg.price_blocks)
+    refactors: jax.Array      # i32[3] — refactorizations by path: Newton
+    #                           polish of the maintained inverse, rebuild
+    #                           from the f32 seed + Newton, Gauss-Jordan
 
 
 class SolveOutput(NamedTuple):
@@ -107,6 +108,7 @@ class SolveOutput(NamedTuple):
     art_sign: jax.Array # f64[m] — artificial column signs (chunked resume)
     trace: jax.Array    # f32[cap, 8] — per-iteration metrics (see State)
     viol: jax.Array     # f64 — worst periodic-invariant violation (0 if off)
+    refactors: jax.Array = None  # i32[3] — see State (primal core only)
 
 
 def _nonbasic_values(vstat, lb_tot, ub_tot):
@@ -127,10 +129,8 @@ def _make_primal_kernel(A, b, c, lb, ub, cfg: SolverConfig, max_iter,
     XL form (the dual engine's ``dual_xl_*`` pattern): the body never
     refactorizes -- ``cond`` exits the loop whenever one is pending and
     the HOST runs it as separate bounded device programs
-    (``primal_xl_*`` below).  Under this TPU's f64 emulation the in-loop
-    refactor branch holds ~10 GB of matmul limb temporaries live next to
-    the O(m^2) loop state -- past m_pad ~ 12k the compile cannot fit HBM
-    (the round-1..3 ``_PRIMAL_INLOOP_MAX_M`` cap this factory removes).
+    (``primal_xl_*`` below), so the loop state never holds the
+    refactorization's O(m^2) temporaries next to its own.
     """
     m, n = A.shape
     f = A.dtype
@@ -152,6 +152,7 @@ def _make_primal_kernel(A, b, c, lb, ub, cfg: SolverConfig, max_iter,
         trace=jnp.zeros((trace_cap, 8), jnp.float32),
         viol=jnp.zeros((), f),
         pblock=jnp.int32(0),
+        refactors=jnp.zeros(3, jnp.int32),
     )
 
     def art_mass(s: State):
@@ -200,12 +201,12 @@ def _make_primal_kernel(A, b, c, lb, ub, cfg: SolverConfig, max_iter,
 
     # ---- block product-form fold (cfg.inverse == "eta") ----
     # The pending block is kept composed: B⁻¹_cur = (I + Z·Pᵀ)·Binv, so the
-    # fold is one (m,T)@(T,m) matmul — MXU work with B⁻¹'s HBM traffic paid
+    # fold is one (m,T)@(T,m) matmul — B⁻¹'s memory traffic paid
     # once per eta_block pivots instead of every pivot (the reference folds
     # at refactorization only because its updates stay as a sequential eta
     # file, lower_upper/mod.rs:157-230).
     def fold_etas(s: State) -> State:
-        Binv = s.Binv + panel_matmul(s.etaZ, jnp.take(s.Binv, s.etaR, axis=0))
+        Binv = s.Binv + s.etaZ @ jnp.take(s.Binv, s.etaR, axis=0)
         return s._replace(
             Binv=Binv,
             etaZ=jnp.zeros_like(s.etaZ),
@@ -235,9 +236,9 @@ def _make_primal_kernel(A, b, c, lb, ub, cfg: SolverConfig, max_iter,
             # full rebuild.
             X = s.Binv
             if use_eta:
-                X = X + panel_matmul(s.etaZ, jnp.take(X, s.etaR, axis=0))
+                X = X + s.etaZ @ jnp.take(X, s.etaR, axis=0)
             eye = jnp.eye(m, dtype=f)
-            X1 = panel_matmul(X, 2.0 * eye - panel_matmul(B, X))
+            X1 = X @ (2.0 * eye - B @ X)
             resid = inverse_residual(B, X1)
             healthy = jnp.isfinite(resid) & (resid < 1e-9)
             Binv, min_piv = lax.cond(
@@ -247,7 +248,12 @@ def _make_primal_kernel(A, b, c, lb, ub, cfg: SolverConfig, max_iter,
                 None,
             )
         else:
+            healthy = jnp.bool_(False)
             Binv, min_piv = rebuild_full(None)
+        # the Newton rebuild reports an infinite pivot, Gauss-Jordan its
+        # smallest one
+        path = jnp.where(healthy, 0, jnp.where(jnp.isinf(min_piv), 1, 2))
+        s = s._replace(refactors=s.refactors.at[path].add(1))
 
         def rebuild(s: State) -> State:
             nb = _nonbasic_values(s.vstat, lb_tot, ub_tot_p2)
@@ -285,10 +291,10 @@ def _make_primal_kernel(A, b, c, lb, ub, cfg: SolverConfig, max_iter,
         # has degraded (the exact-arithmetic reference can't hit this).  A
         # refactorization rebuilds from clean problem columns; if the state
         # is broken immediately after one, give up with NUMERICAL.
-        # Non-finite state OR magnitude blow-up: f64 is emulated on this
-        # TPU and huge-but-finite intermediates (near-singular inverse
-        # entries squared in the rank-1 update) can exceed the emulation's
-        # range and hard-fault the device — refactor well before that.
+        # Non-finite state OR magnitude blow-up: huge-but-finite
+        # intermediates (near-singular inverse entries squared in the
+        # rank-1 update) are on their way to overflow — refactor well
+        # before that.
         # Blow-up only counts on a stale inverse: a freshly refactorized
         # ill-conditioned basis already routes through the Gauss-Jordan
         # minimal-pivot check into repair.
@@ -388,7 +394,8 @@ def _make_primal_kernel(A, b, c, lb, ub, cfg: SolverConfig, max_iter,
             return q, has, d[q]
 
         def price_full_mixed(_):
-            # f64 is emulated on TPU: scan the pool in f32 (MXU-friendly),
+            # scan the pool in f32 (half the bytes of f64; a GPU may run
+            # the dense product in TF32, acceptable for a proposal),
             # confirm only the chosen column's reduced cost in f64, and fall
             # back to a full f64 pricing pass when the f32 scan finds nothing
             # or its candidate fails confirmation (rare: near optimality).
@@ -441,8 +448,8 @@ def _make_primal_kernel(A, b, c, lb, ub, cfg: SolverConfig, max_iter,
         # ---- straight-line iteration ----
         # Terminal/unbounded statuses and the flip-vs-pivot update are all
         # computed unconditionally and merged with selects: in the
-        # sequential hot loop a few redundant vector ops are far cheaper on
-        # TPU than lax.cond dispatch (the only remaining branch is the rare
+        # sequential hot loop a few redundant vector ops are cheaper than
+        # lax.cond dispatch (the only remaining branch is the rare
         # refactorization above).
         t = jnp.where(
             vs[q] == st.NB_UPPER,
@@ -561,12 +568,12 @@ def _make_primal_kernel(A, b, c, lb, ub, cfg: SolverConfig, max_iter,
 
         if cfg.pricing == "devex":
             # devex reference-weight update (Harris 1973): with pivot row
-            # α = (B⁻¹A)[r,:] (f32 — weights are heuristic) and α_q = u_r,
+            # α = (B⁻¹A)[r,:] (f32, TF32 acceptable — weights are
+            # heuristic) and α_q = u_r,
             #   w_j ← max(w_j, (α_j/α_q)² w_q)   for nonbasic j
             #   w_leaving ← max(w_q/α_q², 1)
-            # All intermediates are clamped well below ~1e38: f64 on this
-            # TPU is emulated, and huge-but-finite values in this update
-            # were implicated in hardware faults deep into long solves.
+            # All intermediates are clamped well below ~1e38, the f32
+            # range of the pricing shadow.
             alpha = A.rmatvec32(cur_row_r.astype(jnp.float32)).astype(f)
             inv_p = 1.0 / jnp.where(jnp.abs(p) > 1e-12, p, 1.0)
             ratio2 = jnp.minimum((alpha * inv_p) ** 2, 1e8)
@@ -768,8 +775,8 @@ def solve_core(
     falls back to a phase-1 repair automatically.
     """
     A = as_amatrix(A)  # DenseMatrix or EllMatrix (trace-time dispatch — the
-    #                    TPU analogue of the reference's MatrixProvider
-    #                    static dispatch, matrix_provider/mod.rs:37-136)
+    #                    analogue of the reference's MatrixProvider static
+    #                    dispatch, matrix_provider/mod.rs:37-136)
     m, n = A.shape
     f = A.dtype
 
@@ -783,7 +790,7 @@ def solve_core(
     # the in-loop refactorization cond makes every vmapped iteration pay the
     # full O(m³) rebuild (measured 52 ms/iter on a (17,216,384) fleet vs
     # ~1 ms for the straight-line body).  The nested form hoists it: an
-    # outer loop refactorizes unconditionally (one batched MXU inversion per
+    # outer loop refactorizes unconditionally (one batched inversion per
     # refactor period), the inner loop runs the external-form body, which
     # exits whenever a refactorization is pending.
     K = _make_primal_kernel(A, b, c, lb, ub, cfg, max_iter, external=nested)
@@ -923,8 +930,8 @@ def solve_core(
     # clean final refactor: crisp Binv and freshly-computed xB for extraction
     final = refactor(final)
 
-    # one step of iterative refinement on the basic solution (SURVEY §2.1
-    # TPU plan: f64 + refinement replaces exact arithmetic):
+    # one step of iterative refinement on the basic solution (SURVEY §2.1:
+    # f64 + refinement replaces exact arithmetic):
     # xB += B⁻¹ (r − B xB) with B reconstructed from clean problem columns
     is_art_f = final.basis >= n
     k_f = jnp.clip(final.basis - n, 0, m - 1)
@@ -965,6 +972,7 @@ def solve_core(
         art_sign=final.art_sign,
         trace=final.trace,
         viol=final.viol,
+        refactors=final.refactors,
     )
 
 

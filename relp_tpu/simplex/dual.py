@@ -4,7 +4,7 @@ Goes BEYOND the reference, whose roadmap leaves "Dual algorithm" unchecked
 (README.md:15-28): given a *dual-feasible* basis (e.g. the optimal basis of
 a related problem whose bounds were since tightened — branch-and-bound's
 re-solve pattern), iterate on primal feasibility while maintaining dual
-feasibility.  Same TPU shape as the primal core: one ``lax.while_loop``,
+feasibility.  Same device shape as the primal core: one ``lax.while_loop``,
 straight-line selects, dense maintained inverse with rank-1 updates and
 periodic refactorization; the dual update reuses the identity
 ``π' = π + (d_q/u_r)·B⁻¹[r,:]``.
@@ -26,12 +26,8 @@ Per iteration:
 XL problems (``m_pad > config.refactor_external_m``) run the SAME body
 through the *externally refactorized* entry points ``dual_xl_*``: the
 refactorization leaves the jitted loop entirely and becomes separate small
-device programs orchestrated by the host driver.  Rationale: under this
-TPU's f64 emulation a single in-loop ``lax.cond`` refactor branch holds
-~10 GB of matmul limb-partial temporaries live alongside the 2.4 GB loop
-state (observed on STOCFOR3, m_pad=17408: 51.9 GB HBM demand, 61%
-fragmentation) — bounded device calls with host orchestration are the
-TPU-idiomatic shape for rare heavyweight events.
+device programs orchestrated by the host driver, so the O(m²)
+refactorization temporaries are never live next to the loop state.
 """
 
 from __future__ import annotations
@@ -48,9 +44,6 @@ from relp_tpu.ops.linalg import (
     gauss_jordan_inverse,
     inverse_residual,
     newton_refined_inverse,
-    panel_matmul,
-    panel_matvec,
-    panel_vecmat,
     robust_inverse,
 )
 from relp_tpu.simplex import status as st
@@ -97,9 +90,9 @@ def _derived_state(A, b, c, lb_tot, ub_tot, basis, vstat, Binv):
     nb = _nonbasic_values(vstat, lb_tot, ub_tot)
     nb = jnp.where(vstat == st.BASIC, 0.0, nb)
     r = b - A.matvec(nb[:n])
-    xB = panel_matvec(Binv, r)
+    xB = Binv @ r
     cB = jnp.where(is_art, 0.0, jnp.take(c, jnp.clip(basis, 0, n - 1)))
-    pi = panel_vecmat(cB, Binv)
+    pi = cB @ Binv
     d = c - A.rmatvec(pi)
     beta = jnp.sum(Binv * Binv, axis=1)
     return xB, pi, d, beta
@@ -134,7 +127,7 @@ def _make_kernel(A, b, c, lb, ub, art_sign, cfg: SolverConfig, max_iter,
             # maintained inverse, full rebuild on residual failure
             X = s.Binv
             eye = jnp.eye(m, dtype=f)
-            X1 = panel_matmul(X, 2.0 * eye - panel_matmul(B, X))
+            X1 = X @ (2.0 * eye - B @ X)
             resid = inverse_residual(B, X1)
             healthy = jnp.isfinite(resid) & (resid < 1e-9)
             Binv, min_piv = lax.cond(
@@ -207,10 +200,10 @@ def _make_kernel(A, b, c, lb, ub, art_sign, cfg: SolverConfig, max_iter,
         if cfg.dual_ratio == "bisect":
             # Sort-free form: the blocking ratio is the step-function
             # crossing t* = min{t : Σ_{cand, ratio≤t} cap ≥ viol_r}; locate
-            # it by scalar bisection (64 masked O(n) reductions — far
-            # cheaper on TPU than one O(n log n) argsort + gathers at
-            # DFL001-class n).  Selection below is identical to the sorted
-            # form up to exact-ratio ties.
+            # it by scalar bisection (64 masked O(n) reductions instead of
+            # one O(n log n) argsort + gathers at DFL001-class n).
+            # Selection below is identical to the sorted form up to
+            # exact-ratio ties.
             total_cap = jnp.sum(cap)
             any_block = total_cap >= viol[r]
             hi0 = jnp.max(jnp.where(cand, ratio, 0.0))
@@ -282,7 +275,7 @@ def _make_kernel(A, b, c, lb, ub, art_sign, cfg: SolverConfig, max_iter,
                 jnp.where(vs == st.NB_LOWER, boxed_range, -boxed_range),
                 0.0,
             )
-            return xB - panel_matvec(s.Binv, A.matvec(dx))
+            return xB - s.Binv @ A.matvec(dx)
 
         xB_f = lax.cond(
             do_pivot & (n_flips > 0), with_flips, lambda xB: xB, s.xB
@@ -323,7 +316,7 @@ def _make_kernel(A, b, c, lb, ub, art_sign, cfg: SolverConfig, max_iter,
             # Forrest–Goldfarb exact dual-steepest-edge weight update:
             #   τ = B⁻¹·(B⁻¹[r,:])ᵀ;  β_r' = β_r/p²;
             #   β_i' = β_i − 2(u_i/p)·τ_i + (u_i/p)²·β_r   (i ≠ r)
-            tau = panel_matvec(s.Binv, rho)
+            tau = s.Binv @ rho
             beta_new = s.beta - 2.0 * ratio_u * tau + ratio_u * ratio_u * beta_r
             beta_new = beta_new.at[r].set(beta_r / (p_safe * p_safe))
             beta_new = jnp.maximum(beta_new, 1e-12)
@@ -475,7 +468,7 @@ def solve_core_dual(
 
 @functools.partial(jax.jit, static_argnames=("cfg",))
 def dual_xl_rebuild(A, basis, art_sign, cfg: SolverConfig):
-    """From-scratch inverse of the current basis: blocked-GJ f32 seed +
+    """From-scratch inverse of the current basis: f32 LU seed +
     Newton-Schulz refinement (ops/linalg.py).  Returns ``(Binv, resid)``;
     a non-finite or large residual means (near-)singular."""
     A = as_amatrix(A)
@@ -486,9 +479,9 @@ def dual_xl_rebuild(A, basis, art_sign, cfg: SolverConfig):
 @jax.jit
 def dual_xl_resid(A, basis, art_sign, Binv):
     """Probe residual of the MAINTAINED inverse against the current basis
-    columns (ops/linalg.inverse_residual — 4 sign-pattern probes, 8 panel
-    matvecs).  ~m/4 000× fewer FLOPs than a Newton polish (two m³ emulated
-    -f64 matmuls): the driver checks this first and skips the polish while
+    columns (ops/linalg.inverse_residual — 4 sign-pattern probes, 8
+    matvecs).  ~m/4 000× fewer FLOPs than a Newton polish (two m³ f64
+    matmuls): the driver checks this first and skips the polish while
     the rank-1 product-form drift is still below the SAME 1e-9 health bar
     the polish itself applies, so the freshness invariant is unchanged."""
     A = as_amatrix(A)
@@ -505,7 +498,7 @@ def dual_xl_polish(A, basis, art_sign, Binv):
     f = A.dtype
     m = A.shape[0]
     B, _ = _basis_matrix(A, basis.astype(jnp.int32), art_sign)
-    X1 = panel_matmul(Binv, 2.0 * jnp.eye(m, dtype=f) - panel_matmul(B, Binv))
+    X1 = Binv @ (2.0 * jnp.eye(m, dtype=f) - B @ Binv)
     return X1, inverse_residual(B, X1)
 
 

@@ -16,12 +16,11 @@ carry/lower_upper/mod.rs:35-391, decomposition/mod.rs:27-138).  Design:
   with Harris near-tie selection, incremental reduced costs.
 
 Why host: at STOCFOR3 scale (m≈16.6k, nnz/m≈4.5) a *sequential* pivot
-updates O(nnz) data per step — far below any useful TPU dispatch, while a
-dense maintained inverse pays O(m²) HBM per pivot (the round-2 dual-xl
-path measured 1.79 it/s).  Sparse triangular solves are serial DAG
-traversals, the one workload this hardware cannot stream; the TPU owns
-the first-order scale path (fom/pdhg.py) and fleet/pricing batch work,
-and this engine supplies exact-vertex capability (crossover, warm starts,
+updates O(nnz) data per step — far below a useful device dispatch, while a
+dense maintained inverse pays O(m²) device-memory traffic per pivot.
+Sparse triangular solves are serial DAG traversals; the device owns the
+first-order scale path (fom/pdhg.py) and fleet/pricing batch work, and
+this engine supplies exact-vertex capability (crossover, warm starts,
 reoptimization) at any m.
 """
 
@@ -419,6 +418,50 @@ def triangular_crash(A_csc, cand_cols, n_pad):
         basis[r] = j
     for r in free_rows:
         basis[r] = n_pad + r
+    return basis
+
+
+def independent_crash(A_csc, cand_cols, n_pad, tol: float = 1e-7):
+    """Nonsingular basis from candidate columns, for matrices too dense
+    for :func:`triangular_crash` (whose strict rule accepts ONE column of
+    a fully dense matrix).
+
+    Accepts candidates in priority order while they add rank — the
+    residual of a column against the span of those already accepted
+    (modified Gram-Schmidt, dense, O(m·r) per candidate) must keep
+    ``tol`` of its norm — then places artificials on the rows that a
+    partially pivoted LU of the accepted columns leaves uncovered, so
+    ``[A_chosen | e_rows]`` is nonsingular.  Returns the slot-ordered
+    basis array (same layout as :func:`triangular_crash`).
+    """
+    from scipy.linalg import lu as _dense_lu
+
+    A_csc = A_csc.tocsc()
+    m = A_csc.shape[0]
+    cand = np.asarray(cand_cols, np.int64)
+    dense = A_csc[:, cand].toarray()
+    Q = np.zeros((m, min(m, len(cand))))
+    chosen = []
+    for k, j in enumerate(cand):
+        a = dense[:, k]
+        na = np.linalg.norm(a)
+        if na == 0.0:
+            continue
+        r = len(chosen)
+        v = a - Q[:, :r] @ (Q[:, :r].T @ a)
+        v -= Q[:, :r] @ (Q[:, :r].T @ v)  # re-orthogonalize once
+        nv = np.linalg.norm(v)
+        if nv <= tol * na:
+            continue
+        Q[:, r] = v / nv
+        chosen.append(int(j))
+        if len(chosen) == m:
+            break
+    basis = n_pad + np.arange(m, dtype=np.int64)
+    if chosen:
+        P, _, _ = _dense_lu(A_csc[:, chosen].toarray())
+        perm = P.argmax(axis=0)  # row of A at each pivot position
+        basis[perm[: len(chosen)]] = chosen
     return basis
 
 

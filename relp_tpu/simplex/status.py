@@ -20,7 +20,7 @@ STATUS_TO_TYPE = {
     NUMERICAL: LinearProgramType.NUMERICAL_ERROR,
 }
 
-# Variable status (vstat); the TPU analogue of "is this column in the basis"
+# Variable status (vstat); the device analogue of "is this column in the basis"
 # plus at-which-bound bookkeeping for the bounded-variable simplex.
 NB_LOWER = 0   # nonbasic at (finite) lower bound
 NB_UPPER = 1   # nonbasic at (finite) upper bound

@@ -5,7 +5,7 @@ and pivot rule as compile-time *type parameters* at the call site (e.g.
 ``Carry<RationalBig, LUDecomposition<_>>`` in reference ``src/bin/main.rs:52``).
 Here the analogue is a frozen (hashable) dataclass whose fields are static
 arguments to the jitted solve — each distinct config compiles its own
-specialized XLA program, which is the TPU-native form of static dispatch.
+specialized XLA program, which is the device form of static dispatch.
 """
 
 from __future__ import annotations
@@ -29,8 +29,8 @@ class SolverConfig:
     max_iter_factor: int = 40
 
     # Iterations per device call: long solves are split into bounded
-    # executions continued via exact warm starts (single uninterrupted
-    # device executions beyond ~1 min hit the runtime's watchdog).
+    # executions continued via exact warm starts (simplex/driver.py scales
+    # it down with the row count).
     device_chunk_iters: int = 8000
 
     # Rebuild the basis inverse from scratch every this many pivots.
@@ -58,36 +58,37 @@ class SolverConfig:
     # Basis-inverse maintenance backend (the reference's Carry<F, BI>
     # parameterization, inverse_maintenance/carry/lower_upper/mod.rs:35-391):
     # - "dense": explicit B⁻¹ updated eagerly by one rank-1 outer product per
-    #   pivot (reference BasisInverseRows analogue).  O(m²) HBM traffic per
-    #   pivot — best for small/medium m.
+    #   pivot (reference BasisInverseRows analogue).  O(m²) memory traffic
+    #   per pivot — best for small/medium m.
     # - "eta": block product-form — per pivot an O(m) eta vector is composed
     #   into an (m × eta_block) pending block (the reference's EtaFile
     #   algebra, eta_file.rs:14-134, kept in *composed* form so applying it
     #   is one gather + small matmul, not a sequential scan), folded into
-    #   B⁻¹ every eta_block pivots by ONE (m,T)@(T,m) MXU matmul.  Cuts
-    #   per-pivot HBM traffic by ~eta_block× — the large-m backend.
+    #   B⁻¹ every eta_block pivots by ONE (m,T)@(T,m) matmul.  Cuts
+    #   per-pivot memory traffic by ~eta_block× — the large-m backend.
     inverse: str = "dense"
     eta_block: int = 16
 
     # Refactorize via f32 LU seed + f64 Newton-Schulz refinement (matmul
-    # heavy, MXU-friendly) with Gauss-Jordan as the ill-conditioned
-    # fallback; False forces plain Gauss-Jordan.
+    # heavy) with Gauss-Jordan as the ill-conditioned fallback; False
+    # forces plain Gauss-Jordan.
     newton_refactor: bool = True
 
-    # Above this padded row count the refactorization moves OUT of the
-    # jitted while-loop: the loop exits when a refactorization is pending
-    # and the host driver runs it as separate small device programs
-    # (dual_xl_* in simplex/dual.py).  Under this TPU's f64 emulation an
-    # in-loop lax.cond refactor branch holds ~10 GB of matmul limb-partial
-    # temporaries live alongside the O(m²) loop state (observed OOM on
-    # STOCFOR3, m_pad=17408: 51.9 GB demand vs 15.75 GB HBM).
+    # Above this padded row count the simplex leaves the in-loop form:
+    # the host sparse-LU dual runs first, and the device engines run with
+    # the refactorization OUT of the jitted while-loop (the loop exits when
+    # one is pending; the host runs it as separate device programs,
+    # dual_xl_*/primal_xl_*).  On an H100 at m_pad 16384 the external
+    # device primal ran 177 pivots/s over a 2000-pivot window, the in-loop
+    # one 39 (PERF.md); where between 2048 and 16384 the two cross is not
+    # measured.
     refactor_external_m: int = 12288
 
     # XL simplex engine (m_pad > refactor_external_m): "lu" (default via
     # "auto") = the host sparse-LU dual simplex (simplex/lu_host.py —
-    # scipy splu refactorization + eta product form, the reference's
-    # Markowitz-LU counterpart; O(nnz)-per-pivot where the dense device
-    # inverse pays O(m²) HBM — STOCFOR3 went 1.79 it/s → >100 it/s);
+    # native FT-LU or scipy splu refactorization + eta product form, the
+    # reference's Markowitz-LU counterpart; O(nnz) per pivot where the
+    # dense device inverse pays O(m²) memory traffic);
     # "dense" = the round-2 externally-refactorized device DUAL path;
     # "primal" = the externally refactorized device PRIMAL at any size
     # (primal_xl_* in simplex/core.py — no host-LU routing; also forces
@@ -103,9 +104,9 @@ class SolverConfig:
     # - "full": always rebuild from scratch (f32 LU + Newton / GJ).
     refactor_mode: str = "polish"
 
-    # Price the column pool in f32 (MXU) with f64 confirmation of the
-    # chosen column and a full-f64 fallback pass near optimality; f64 is
-    # emulated on TPU, so this is the dominant per-iteration FLOP saving.
+    # Price the column pool in f32 with f64 confirmation of the chosen
+    # column and a full-f64 fallback pass near optimality (half the bytes
+    # of the pricing scan; not yet measured against f64 on the H100).
     mixed_pricing: bool = True
 
     # Record a per-iteration metric stream on device (phase, partial
@@ -145,9 +146,9 @@ class SolverConfig:
     pricing: str = "devex"
 
     # Device representation of A: "dense" (padded f64 + f32 shadow — best
-    # for small/dense pools where fused MXU matvecs win), "ell" (column-major
+    # for small/dense pools where fused matvecs win), "ell" (column-major
     # ELL sparse — O(nnz) gather pricing/FTRAN, unlocks DFL001/STOCFOR3-class
-    # sizes where O(m·n) dense work and HBM are prohibitive; the TPU analogue
+    # sizes where O(m·n) dense work and memory are prohibitive; the analogue
     # of the reference's sparse L1, matrix.rs:23-77), "hybrid" (ELL plus a
     # small dense block for high-fill spill columns — FIT2P-class instances
     # with a few full columns), or "auto" (by size and per-column fill;
@@ -168,8 +169,8 @@ class SolverConfig:
     # falls back to simplex when it cannot certify optimality.
     # "ipm" selects the primal-dual interior-point engine
     # (simplex/primal_dual.py): Mehrotra predictor-corrector whose
-    # per-iteration work is ONE dense normal-equation GEMM + Cholesky —
-    # the MXU-native algorithm shape (O(√n) iterations regardless of
+    # per-iteration work is ONE dense normal-equation GEMM + Cholesky
+    # (O(√n) iterations regardless of
     # degeneracy); shares the PDLP crossover/fallback plumbing.
     algorithm: str = "primal"
     pdlp_tol: float = 1e-8
@@ -196,20 +197,18 @@ class SolverConfig:
     # an EXACT vertex optimum — typically a handful of pivots.  Applies
     # when the in-loop primal is available (m_pad ≤ 12288).
     pdlp_crossover: bool = True
-    # Iterate precision for the first-order engine.  "auto" = mixed on
-    # accelerators (f64 elementwise ops are limb-emulated on TPU — the f32
-    # brick rounds run 2.4× faster, measured 1543 vs 630 it/s on DFL001,
-    # runs/profile_pdhg_DFL001_tpu.json), full f64 on CPU.  "mixed" = f32
-    # rounds with f64 KKT verification at chunk boundaries and an f64
-    # endgame once f32 stalls (its fixed-point floor is ~1e-6 relative);
-    # "f64" = everything in f64.  Acceptance ALWAYS uses the f64 KKT.
+    # Iterate precision for the first-order engine.  "auto" = "f64" =
+    # everything in f64 (the faster choice on the H100, PERF.md).
+    # "mixed" = f32 rounds with f64 KKT verification at chunk boundaries
+    # and an f64 endgame once f32 stalls (its fixed-point floor is ~1e-6
+    # relative).  Acceptance ALWAYS uses the f64 KKT.
     pdlp_precision: str = "auto"
     # Iterative refinement for the mixed-precision PDLP path: once the f32
     # stage floors, zoom into the RESIDUAL problem (min dᵀe s.t. Ae = r,
     # lb−x ≤ e ≤ ub−x with r = b−Ax, d = c−Aᵀy in f64; rhs/bounds scaled
     # by 1/‖r‖∞ so the f32 iteration works at O(1) magnitudes — the LP
     # iterative-refinement scheme of Gleixner et al., primal zoom) instead
-    # of paying for limb-emulated f64 rounds.  The SAME device operator
+    # of switching to f64 rounds.  The SAME device operator
     # serves every subproblem (only O(n+m) vectors change → no
     # recompilation).  Value = max refinement rounds; 0 disables (the f64
     # endgame path is the fallback either way).
@@ -232,23 +231,20 @@ class SolverConfig:
     # (decentred f32→f64 handoffs restart from a fresh start point and
     # need ~50 more iterations; healthy instances converge in 20-60)
     ipm_max_iter: int = 200
-    # Cholesky precision ladder: "auto" = f64-only on CPU, f32→f64 on
-    # accelerators; "f64" forces the f64-only rung everywhere (GREENBEA-
-    # class instances: the f32 rung's escape-phase directions walk the
-    # iterate into a badly-centered region the f64 handoff crawls out
-    # of, while pure f64 converges in 47 iterations); "mixed" forces the
-    # two-rung ladder.
+    # Cholesky precision ladder: "auto" = "f64" = the f64-only rung (the
+    # faster choice on the H100 and on the CPU; GREENBEA-class instances
+    # also need it: the f32 rung's escape-phase directions walk the iterate
+    # into a badly-centered region); "mixed" = the f32→f64 two-rung ladder.
     ipm_ladder: str = "auto"
     # Branch-and-bound variable selection: "pseudo" = pseudo-cost product
     # rule (per-variable average LP-bound degradation per unit fractional
     # distance, learned online; Achterberg); "fractional" = the round-2
     # most-fractional rule.
     mip_branch: str = "pseudo"
-    # PDHG device matrix: "bricks" re-tiles the nonzeros into (8, 128)
-    # dense bricks gathered as 128-lane rows — TPU element gathers are
-    # serial (~14 ns/element; tools/probe_gather_layouts.py), so the ELL
-    # forms that win on CPU run ~40× slower than bricks on the TPU.
-    # "auto" picks bricks on accelerators, ELL on CPU.
+    # PDHG device matrix: "auto" = "ell" (row- and column-major ELL
+    # twins); "bricks" re-tiles the nonzeros into (8, 128) dense bricks
+    # gathered as rows (ops/bricks.py), slower than ELL on the H100
+    # (PERF.md).
     pdlp_matrix: str = "auto"
     # temporary-box magnitude for the dual start (data is equilibrated to
     # O(1), so this is effectively absolute in scaled space)
@@ -264,9 +260,8 @@ class SolverConfig:
     # approximation drift to one refactor period.
     dual_pricing: str = "dse"
     # BFRT implementation: "sort" materializes the candidates in ratio order
-    # (one O(n log n) argsort + gathers per iteration — TPU sorts are slow at
-    # large n) or "bisect" which finds the blocking ratio t* = min{t :
-    # Σ_{ratio≤t} cap ≥ viol_r} by ~60 scalar bisection steps of masked
+    # (one O(n log n) argsort + gathers per iteration) or "bisect" which
+    # finds the blocking ratio t* = min{t : Σ_{ratio≤t} cap ≥ viol_r} by ~60 scalar bisection steps of masked
     # O(n) reductions — same selected pivot up to ties, no sort.
     dual_ratio: str = "bisect"
 
@@ -298,8 +293,8 @@ class SolverConfig:
     # (helps ADLITTLE, slows SHARE1B/25FV47 slightly).
     crash_basis: bool = False
 
-    # Pad row/column counts up to multiples of these (TPU tile alignment and
-    # jit-cache bucketing).
+    # Pad row/column counts up to multiples of these (jit-cache bucketing;
+    # the values are not measured on a GPU yet).
     row_align: int = 8
     col_align: int = 128
     # Pad shapes to powers of two (floors row_align*8 / col_align*2) so many

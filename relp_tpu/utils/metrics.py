@@ -1,8 +1,8 @@
 """Observability: timers, structured per-solve metrics, profiler hooks.
 
 The reference has no tracing/metrics at all (SURVEY §5: "absent... only
-println! in the CLI"); this is a new first-class subsystem for the TPU
-build: every solve produces a :class:`SolveMetrics` record, optional
+println! in the CLI"); this is a new first-class subsystem here: every
+solve produces a :class:`SolveMetrics` record, optional
 structured logging is enabled with ``RELP_TPU_LOG=1``, and
 :func:`device_trace` wraps ``jax.profiler`` for Perfetto/XPlane dumps.
 """
@@ -52,6 +52,10 @@ class SolveMetrics:
     degenerate_steps: int = 0
     # worst periodic in-loop invariant violation (config.check_every_n)
     check_violation: float = 0.0
+    # in-loop primal refactorizations by path (simplex/core.State.refactors)
+    refactor_polish: int = 0
+    refactor_newton: int = 0
+    refactor_gj: int = 0
 
     @property
     def iters_per_s(self) -> float:

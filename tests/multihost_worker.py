@@ -11,7 +11,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 # must be set before relp_tpu imports jax (tests/conftest.py does the
 # same dance for the single-process suite)
-os.environ.setdefault("RELP_TPU_PLATFORM", "cpu")
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 import numpy as np  # noqa: E402
 

@@ -1,7 +1,7 @@
 """Device matrix representations (ops/amatrix.py): ELL vs dense equivalence.
 
 The reference's linear-algebra layer is sparse end-to-end
-(src/data/linear_algebra/matrix.rs:23-77, vector/sparse.rs:27-33); the TPU
+(src/data/linear_algebra/matrix.rs:23-77, vector/sparse.rs:27-33); this
 framework offers dense and column-major-ELL device layouts behind one
 operator interface.  These tests pin every operator to the dense ground
 truth and run the full engine on the ELL path.

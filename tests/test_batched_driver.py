@@ -75,7 +75,7 @@ def test_fleet_pdlp_scenarios_match_highs():
 def test_fleet_ipm_dense_scenarios_match_highs():
     """Interior-point fleet (driver._solve_fleet_ipm): a dense shared-A
     scenario fleet solved as vmapped Mehrotra chunks — batched
-    normal-equation GEMMs + Cholesky, the MXU-native fleet shape (the
+    normal-equation GEMMs + Cholesky, the dense-GEMM fleet shape (the
     PDHG fleet's tail stalls near 1e-6 relative KKT on dense operators).
     Objectives must match HiGHS solving each scenario independently."""
     import numpy as np

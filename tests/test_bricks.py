@@ -1,8 +1,8 @@
-"""BrickMatrix (ops/bricks.py): the TPU-shaped SpMV layout.
+"""BrickMatrix (ops/bricks.py): the tiled-brick SpMV layout.
 
 Reference frame: rust-lp's sparse L1 (src/data/linear_algebra/matrix.rs)
-assumes cheap random access; bricks are the TPU-native replacement
-(element gathers measured serial at ~14 ns/element — module docstring).
+assumes cheap random access; bricks trade element gathers for dense
+(8, 128) tiles gathered as rows (module docstring).
 """
 import numpy as np
 import pytest

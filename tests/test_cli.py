@@ -10,7 +10,7 @@ import pytest
 
 from tests.conftest import reference_problem
 
-ENV = {**os.environ, "RELP_TPU_PLATFORM": "cpu"}
+ENV = {**os.environ, "JAX_PLATFORMS": "cpu"}
 
 
 def run_cli(*cli_args):

@@ -136,7 +136,7 @@ def test_dual_xl_external_refactor(name, expected, tol):
     """`refactor_external_m=1` forces every solve through the XL
     orchestration (dual_xl_rebuild/polish/derive/iterate with the
     refactorization OUT of the jitted loop — the form used beyond
-    m_pad=12288 where the in-loop refactor branch exceeds TPU HBM).
+    m_pad=config.refactor_external_m).
     Must match the in-loop path's objectives."""
     from relp_tpu.api import solve as _solve
     from relp_tpu.model.elements import LinearProgramType

@@ -1,4 +1,4 @@
-"""Exact-arithmetic verification of device solutions (SURVEY §2.1 TPU plan:
+"""Exact-arithmetic verification of device solutions (SURVEY §2.1 plan:
 float64 solve + CPU-side exact certification)."""
 
 from fractions import Fraction

@@ -138,7 +138,7 @@ def test_ipm_greenbea_f64_ladder():
     """GREENBEA regression (VERDICT r4 weak #4): on the f64-only ladder
     the Mehrotra engine must accept an interior point (no simplex
     fallback) — the mixed ladder's f32 escape phase decentres the
-    iterate (ROUND5.md, runs/r5s2_greenbea_cpu_ipm.log).  The accepted
+    iterate.  The accepted
     point's objective carries ~1e-3 relative slop (|obj|=7.3e7 with
     duals ~1e5 amplify the scaled-space KKT), which is why the bench
     keeps GREENBEA on the primal simplex — this test pins the

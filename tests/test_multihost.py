@@ -29,7 +29,7 @@ def test_two_process_sharded_solve():
     port = _free_port()
     env = dict(
         os.environ,
-        RELP_TPU_PLATFORM="cpu",
+        JAX_PLATFORMS="cpu",
         XLA_FLAGS="--xla_force_host_platform_device_count=4",
         RELP_TPU_COORD=f"localhost:{port}",
         RELP_TPU_NPROC="2",

@@ -68,7 +68,7 @@ def test_native_is_faster_on_big_file():
         pytest.skip("STOCFOR3 not available")
     text = open(path).read()
     # best-of-3 each way: a single-shot comparison is flaky under host
-    # load (observed once with a TPU solve running concurrently)
+    # load (observed once with a device solve running concurrently)
     t_py = min(
         _timed(lambda: parse_fixed(text)) for _ in range(3)
     )

@@ -33,7 +33,7 @@ EXTENDED = [
 ]
 
 # Solve + HiGHS-match verified, but minutes-long on the CPU backend —
-# slow-marked like the big ceiling instances (fine on TPU): probe walls
+# slow-marked like the big ceiling instances: probe walls
 # 60-250 s each (PEROLD/BNL1/CZPROB/PILOT-JA/PILOTNOV ~20-60 s but
 # numerically heavy; PILOT matched to 2.8e-11 rel in 250 s).
 EXTENDED_SLOW = [
@@ -47,7 +47,7 @@ EXTENDED_SLOW = [
 #     (HiGHS itself needs ~10^5 iterations); QAP8 exceeded a 15-minute CPU
 #     probe budget.  D2Q06C, DEGEN3, STOCFOR2, CRE-C — exceeded the CPU
 #     probe budget under contention; DFL001/STOCFOR3 are asserted in the
-#     XL bench tier on TPU instead.  KEN-11/PDS-02/PDS-06/CRE-A/CRE-B —
+#     XL bench tier instead.  KEN-11/PDS-02/PDS-06/CRE-A/CRE-B —
 #     Kennington-scale, CPU-impractical; parse-verified.
 # With D2Q06C below, EVERY vendored Netlib file (104/104) asserts an
 # objective somewhere: here, test_netlib_suite.py, or test_pdlp.py

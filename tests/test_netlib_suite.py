@@ -37,7 +37,7 @@ CASES = [
 ]
 
 # Beyond the reference's capability ceiling (ignored there as "too
-# computationally intensive"); float64 + TPU should break through.
+# computationally intensive"); float64 on a device should break through.
 # Expected objectives: Gurobi (25FV47/80BAU3B per reference comments) and
 # Koch, "The final Netlib-LP results" (the rest; BASELINE configs name
 # bnl2 and fit2p/pilot87 explicitly).

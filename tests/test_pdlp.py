@@ -246,13 +246,13 @@ def test_pdlp_mixed_precision_full_kkt():
 
 
 def test_pdlp_refinement_zoom_converges(caplog):
-    """Iterative refinement (config.pdlp_refine, VERDICT r3 perf work):
+    """Iterative refinement (config.pdlp_refine):
     once the f32 stage floors, the driver zooms into the scaled residual
     problem (r = b−Ax, d = c−Aᵀy; LP iterative refinement à la Gleixner)
     and keeps iterating in f32 — ISRAEL's f32 noise floor is ~2e-3, so
     reaching its objective to 1e-6 under precision="mixed" proves the
     zoom engaged and composited correctly (without refinement this path
-    needed limb-emulated f64 endgame rounds)."""
+    needs f64 endgame rounds)."""
     import logging
 
     from relp_tpu.api import solve

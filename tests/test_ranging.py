@@ -270,7 +270,7 @@ def test_cli_ranging_json(tmp_path):
          "/root/reference/tests/netlib/problem_files/AFIRO.SIF",
          "--json", "--ranging", "-q"],
         capture_output=True, text=True, timeout=600,
-        env={"RELP_TPU_PLATFORM": "cpu", "PATH": "/usr/bin:/bin",
+        env={"JAX_PLATFORMS": "cpu", "PATH": "/usr/bin:/bin",
              "HOME": "/root"},
     )
     assert out.returncode == 0, out.stderr
